@@ -32,12 +32,12 @@ def run_mode(mode, ds, meta, parts, B, fanouts, cache_mb, iters, refresh,
              seed=0, epochs=1):
     import jax
 
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.distribution import SeedDistributor
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.distribution import SeedDistributor
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     store = HostFeatureStore(ds.features)
     mesh = make_mesh(jax.devices()[:1])
@@ -86,7 +86,7 @@ def run_mode(mode, ds, meta, parts, B, fanouts, cache_mb, iters, refresh,
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     p.add_argument("--num_nodes", type=int, default=30000)
     p.add_argument("--feature_dim", type=int, default=64)
     p.add_argument("--parts", type=int, default=2)
@@ -113,15 +113,15 @@ def main(argv=None):
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.utils.jaxconfig import setup
+    from coala_gnn.utils.jaxconfig import setup
     setup(args.platform)
 
-    from coala_gnn_tpu.coloring import (generate_color_metadata,
+    from coala_gnn.coloring import (generate_color_metadata,
                                         load_color_metadata)
-    from coala_gnn_tpu.graph.datasets import clustered_graph, synthetic_graph
+    from coala_gnn.graph.datasets import clustered_graph, synthetic_graph
 
     if args.path:
-        from coala_gnn_tpu.graph.datasets import load_preprocessed
+        from coala_gnn.graph.datasets import load_preprocessed
         ds = load_preprocessed(args.path, num_classes=args.num_classes)
         meta = load_color_metadata(
             args.color_dir or os.path.join(args.path, "colors"))

@@ -6,7 +6,7 @@ measurement points 1 chip / 1 host / N hosts. On real multi-chip hardware
 this script measures exactly that; on a single-chip or CPU environment it
 runs the identical code path over virtual devices as a *structural* check
 (collectives execute, shapes hold — wall-clock efficiency there reflects
-host emulation, not ICI).
+host emulation, not device links).
 
   COALA_CPU_DEVICES=8 python examples/bench_scaling.py --platform cpu
 """
@@ -28,14 +28,14 @@ def run_mesh(n_dev, ds, B, fanouts, hidden, steps, seed=0):
     import optax
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.data.loader import CoalaDataLoader
-    from coala_gnn_tpu.distribution import DistributionScheduler, SeedDistributor
-    from coala_gnn_tpu.models import DeviceBlock, make_model
-    from coala_gnn_tpu.parallel.mesh import DATA_AXIS
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-    from coala_gnn_tpu.parallel.train import make_sharded_train_step
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.data.loader import CoalaDataLoader
+    from coala_gnn.distribution import DistributionScheduler, SeedDistributor
+    from coala_gnn.models import DeviceBlock, make_model
+    from coala_gnn.parallel.mesh import DATA_AXIS
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.parallel.train import make_sharded_train_step
 
     mesh = Mesh(np.asarray(jax.devices()[:n_dev]), (DATA_AXIS,))
     store = HostFeatureStore(ds.features)
@@ -49,7 +49,7 @@ def run_mesh(n_dev, ds, B, fanouts, hidden, steps, seed=0):
                                   local_size=n_dev, num_parts=1,
                                   mode="baseline", shuffle_seed=seed)
     scheduler = DistributionScheduler(distributor, part_id=0, local_rank=0)
-    sampler_mod = __import__("coala_gnn_tpu.sampling.neighbor",
+    sampler_mod = __import__("coala_gnn.sampling.neighbor",
                              fromlist=["NeighborSampler"])
     sampler = sampler_mod.NeighborSampler(ds.graph, fanouts, B, seed=seed)
     loader = CoalaDataLoader(scheduler=scheduler, sampler=sampler,
@@ -98,7 +98,7 @@ def run_mesh(n_dev, ds, B, fanouts, hidden, steps, seed=0):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     p.add_argument("--num_nodes", type=int, default=30000)
     p.add_argument("--feature_dim", type=int, default=64)
     p.add_argument("--batch_size", type=int, default=128)
@@ -108,14 +108,14 @@ def main():
     p.add_argument("--mesh_sizes", default="")
     p.add_argument("--json", default="",
                    help="append this run (keyed by backend) into a JSON "
-                        "artifact (SCALING_r{N}.json, VERDICT r2 next #7)")
+                        "file")
     args = p.parse_args()
 
-    from coala_gnn_tpu.utils.jaxconfig import setup
+    from coala_gnn.utils.jaxconfig import setup
     setup(args.platform)
     import jax
 
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.datasets import synthetic_graph
 
     n_avail = len(jax.devices())
     sizes = ([int(x) for x in args.mesh_sizes.split(",") if x]
@@ -145,7 +145,7 @@ def main():
                 doc = json.load(f)
         backend = jax.default_backend()
         note = ("structural: virtual devices on one host — collectives "
-                "execute, wall-clock reflects host emulation not ICI"
+                "execute, wall-clock reflects host emulation, not links"
                 if backend == "cpu" else
                 "real single chip (multi-chip hardware unavailable; the "
                 "first pod run diffs against this anchor)")

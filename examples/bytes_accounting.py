@@ -1,26 +1,26 @@
 #!/usr/bin/env python
-"""Scaling evidence via exact byte accounting (VERDICT r3 next #4 + #1).
+"""Scaling evidence via exact byte accounting.
 
-Virtual-device wall-clock is meaningless for ICI (SCALING_r03 showed 0.119
-"efficiency" at 8 CPU devices), so this artifact carries what IS knowable
-without a pod:
+Virtual-device wall-clock says nothing about the links between real
+devices, so this artifact carries what IS knowable without a cluster:
 
 1. EXACT per-step wire bytes of the cache exchange per mode — the traffic
    is shape-determined (fixed all_to_all buckets, padding included), so
-   these are closed-form, not estimates (coala_gnn_tpu/parallel/comm_model).
-   Split intra-host (ICI) vs cross-host (DCN) for the flagship bench
+   these are closed-form, not estimates (coala_gnn/parallel/comm_model).
+   Split intra-host vs cross-host (DCN) for the flagship bench
    shapes on a 2-host x 4-device topology and the reference's 4x4.
 2. A measured virtual-mesh A/B: clustered graph, 2 emulated hosts, affinity
    (node_color) vs striping (baseline) seed distribution over node_local
-   caches — evidence that hit ratio HOLDS when the exchange is ICI-scoped
+   caches — evidence that hit ratio HOLDS when the exchange is host-scoped
    and seeds are steered by color affinity (the reference's whole design:
    nvshmem_manager.cuh:15-28 + node_distributor_pybind.cuh:150-222).
 3. A 1 -> 2 host efficiency projection: measured single-chip step time
-   (pass --step_ms from the live bench) + the byte model + stated link
-   bandwidths, against BASELINE.md's >80% target.
+   (pass --step_ms from the live bench) + the byte model + the link
+   bandwidths you state, against BASELINE.md's >80% target.
 
-  python examples/bytes_accounting.py --platform cpu --step_ms 2.18 \
-      --out SCALING_r04.json
+  COALA_CPU_DEVICES=8 python examples/bytes_accounting.py --platform cpu \
+      --step_ms <bench ms/step> --dcn_gbps <GB/s> --ici_gbps <GB/s> \
+      --out scaling.json
 """
 
 import argparse
@@ -35,8 +35,8 @@ import numpy as np
 
 def flagship_bytes(step_ms: float, dcn_gbps: float, ici_gbps: float):
     """Byte table + projection for the flagship bench config."""
-    from coala_gnn_tpu.parallel import comm_model as cm
-    from coala_gnn_tpu.sampling.neighbor import block_capacities
+    from coala_gnn.parallel import comm_model as cm
+    from coala_gnn.sampling.neighbor import block_capacities
 
     B, fanouts, dim = 1024, [10, 5], 256
     caps = block_capacities(B, fanouts)
@@ -72,7 +72,7 @@ def flagship_bytes(step_ms: float, dcn_gbps: float, ici_gbps: float):
             }
         out["topologies"][f"{hosts}hosts_x_{local}dev"] = rows
     # the BASELINE.md >80% metric: per-device throughput 2 hosts vs 1 host
-    # (weak scaling; 1 host already pays the full ICI exchange)
+    # (weak scaling; 1 host already pays the full intra-host exchange)
     for mode in ("sharded", "node_local", "isolated"):
         for tag, i8 in (("f32_response", False), ("int8_response", True)):
             e = cm.efficiency_1_to_2_hosts(
@@ -99,14 +99,14 @@ def node_local_ab(seed=3, iters=40, refresh=8, cache_mb=1):
     capacity well under the node count (else no pressure), and per-group
     request volume per iter well under capacity (else total turnover every
     step and nothing persists for affinity to exploit)."""
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.coloring import generate_color_metadata
-    from coala_gnn_tpu.distribution import SeedDistributor
-    from coala_gnn_tpu.graph.datasets import clustered_graph
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.coloring import generate_color_metadata
+    from coala_gnn.distribution import SeedDistributor
+    from coala_gnn.graph.datasets import clustered_graph
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     mesh = make_mesh()
     n_dev = mesh.devices.size
@@ -167,14 +167,14 @@ def node_local_ab(seed=3, iters=40, refresh=8, cache_mb=1):
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--platform", default="")
-    p.add_argument("--step_ms", type=float, default=2.18,
+    p.add_argument("--platform", default="gpu")
+    p.add_argument("--step_ms", type=float, required=True,
                    help="measured single-chip flagship step time (from "
                         "bench.py: edges/step / edges/s)")
-    p.add_argument("--dcn_gbps", type=float, default=6.25,
-                   help="per-host DCN bandwidth GB/s (50 Gb/s NIC default)")
-    p.add_argument("--ici_gbps", type=float, default=45.0,
-                   help="per-device ICI bandwidth GB/s (v5e 2D-torus-ish)")
+    p.add_argument("--dcn_gbps", type=float, required=True,
+                   help="per-host cross-host network bandwidth GB/s")
+    p.add_argument("--ici_gbps", type=float, required=True,
+                   help="per-device intra-host link bandwidth GB/s")
     p.add_argument("--reconcile", default="",
                    help="path to examples/comm_reconcile.py output; embeds "
                         "the model-vs-compiled-HLO byte columns so the "
@@ -182,7 +182,7 @@ def main(argv=None):
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.utils.jaxconfig import setup
+    from coala_gnn.utils.jaxconfig import setup
     setup(args.platform)
 
     art = {

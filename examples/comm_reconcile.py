@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Falsify the comm model against compiled HLO (VERDICT r4 next #5).
+"""Falsify the comm model against compiled HLO.
 
 parallel/comm_model.py derives per-device wire bytes from shapes. Until now
 those formulas were unit-tested against themselves — never reconciled with
@@ -109,10 +109,10 @@ def reconcile_lookup(mode: str, n_dev: int, local: int, n_req: int,
     """Compile exchange_lookup, compare HLO bytes vs the model."""
     import jax
 
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.parallel.comm_model import step_traffic
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.parallel.comm_model import step_traffic
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
 
     mesh = make_mesh(jax.devices()[:n_dev])
     cfg = fc.make_config(cache_mb=8, dim=dim, num_colors=0,
@@ -169,8 +169,8 @@ def reconcile_psum(n_dev: int, local: int, param_elems: int) -> dict:
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
 
-    from coala_gnn_tpu.parallel.comm_model import grad_psum_bytes
-    from coala_gnn_tpu.parallel.mesh import DATA_AXIS, make_mesh
+    from coala_gnn.parallel.comm_model import grad_psum_bytes
+    from coala_gnn.parallel.mesh import DATA_AXIS, make_mesh
 
     mesh = make_mesh(jax.devices()[:n_dev])
 
@@ -202,7 +202,7 @@ def run_one(n_dev: int) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     p.add_argument("--devices", default="4,8")
     p.add_argument("--single", type=int, default=0)
     p.add_argument("--out", default="")
@@ -210,7 +210,7 @@ def main(argv=None):
 
     if args.single:
         os.environ["COALA_CPU_DEVICES"] = str(args.single)
-        from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+        from coala_gnn.utils.jaxconfig import setup as jax_setup
         jax_setup("cpu")
         print(json.dumps(run_one(args.single)))
         return

@@ -5,7 +5,7 @@ Parity with the reference's offline graph converter
 (reference: examples/create_csc_graph.py:276-304 — loads a COO
 edge_index.npy, converts via DGL .formats('csc'), dumps
 csc_indptr/csc_indices/csc_edge_ids.npy). Same artifact names/shapes, no DGL:
-a direct stable counting sort (coala_gnn_tpu.graph.csc.coo_to_csc).
+a direct stable counting sort (coala_gnn.graph.csc.coo_to_csc).
 
 Heterogeneous graphs (flattened relation-id form — the artifact
 examples/train.py's rsage/rgcn/rgat path consumes) additionally write
@@ -30,7 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from coala_gnn_tpu.graph.csc import coo_to_csc, save_csc
+from coala_gnn.graph.csc import coo_to_csc, save_csc
 
 
 def _load_coo(path):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Flagship headline tuning grid (VERDICT r3 next #2: >35M edges/s).
+"""Flagship headline tuning grid.
 
 Runs the full-coverage resident pipeline at the flagship config across the
 candidate headline configurations on one chip and persists every row:
@@ -15,7 +15,7 @@ bytes 2-4x and scan_unroll lets XLA overlap step i+1's gather under step
 i's fwd/bwd. Exactness of every variant vs the unfused trainer is pinned
 by tests (test_resident.py, test_training_parity.py).
 
-  python examples/flagship_tune.py --out FLAGSHIP_TUNE_r04.json
+  python examples/flagship_tune.py --out chiprun_out/flagship_tune.json
 """
 
 import argparse
@@ -39,17 +39,17 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=128)
     p.add_argument("--warmup", type=int, default=16)
     p.add_argument("--out", default="")
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     p.add_argument("--only", default="",
                    help="regex: run only matching grid tags")
     p.add_argument("--merge", action="store_true",
                    help="merge rows into an existing --out artifact")
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+    from coala_gnn.utils.jaxconfig import setup as jax_setup
     jax_setup(args.platform)
     import bench
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.datasets import synthetic_graph
 
     fanouts = [int(f) for f in args.fanout.split(",")]
     ds = synthetic_graph(num_nodes=args.nodes, avg_degree=15,
@@ -100,9 +100,9 @@ def main(argv=None):
         ("bf16_unroll16_rbg", True, False, "bfloat16", 16, None, None),
         ("bf16_P32_unroll8_rbg", True, False, "bfloat16", 8, None, 32),
     ]
-    # r5 GAT rows (VERDICT r4 next #3: GAT ran 4.2x below SAGE with zero
+    # GAT rows (GAT ran far below SAGE with zero
     # tuning): the slot-major plane-FMA combine (models/layers.py) plus the
-    # knobs that bought SAGE +44% in r4 — bf16 lines/model, unroll8, rbg.
+    # knobs that bought SAGE its gain — bf16 lines/model, unroll8, rbg.
     grid = [g + ("sage",) for g in grid] + [
         ("gat_f32_unroll1", False, False, "float32", 1, None, None, "gat"),
         ("gat_f32_unroll8", False, False, "float32", 8, None, None, "gat"),

@@ -35,8 +35,8 @@ def main(argv=None):
     p.add_argument("--feature_dim", type=int, default=128)
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.graph.datasets import load_dataset, synthetic_graph
-    from coala_gnn_tpu.coloring import generate_color_metadata, save_color_metadata
+    from coala_gnn.graph.datasets import load_dataset, synthetic_graph
+    from coala_gnn.coloring import generate_color_metadata, save_color_metadata
 
     if args.data == "synthetic":
         ds = synthetic_graph(num_nodes=args.num_nodes, avg_degree=args.avg_degree,

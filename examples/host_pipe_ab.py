@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Host-pipeline wire-format A/B (VERDICT r3 weak #4 / next #8).
+"""Host-pipeline wire-format A/B.
 
 Measures the packed (explicit adjacency) vs contiguous (slot-major,
 sentinel-marked — adjacency implicit) host pipelines at the flagship
 config, cached and uncached, on one chip. The contiguous format ships
 ~2x fewer bytes/step on the link-bound path (DESIGN.md §2 item 2).
 
-  python examples/host_pipe_ab.py --out HOST_PIPE_r04.json
+  python examples/host_pipe_ab.py --out chiprun_out/host_pipe_ab.json
 """
 
 import argparse
@@ -28,17 +28,17 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=32)
     p.add_argument("--warmup", type=int, default=8)
     p.add_argument("--out", default="")
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+    from coala_gnn.utils.jaxconfig import setup as jax_setup
     jax_setup(args.platform)
     import bench
-    from coala_gnn_tpu.data.packing import (batch_layout, packed_size,
+    from coala_gnn.data.packing import (batch_layout, packed_size,
                                             request_size,
                                             request_size_contig)
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.graph.datasets import synthetic_graph
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     fanouts = [int(f) for f in args.fanout.split(",")]
     ds = synthetic_graph(num_nodes=args.nodes, avg_degree=15,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Generate a tiny REFERENCE-FORMAT dataset fixture (VERDICT r1 item 5).
+"""Generate a tiny REFERENCE-FORMAT dataset fixture.
 
 Writes the IGB raw .npy directory layout the reference trainer consumes
 (reference: examples/dataloader.py:18-124 — node_feat.npy float32,
@@ -22,7 +22,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from coala_gnn_tpu.graph.datasets import synthetic_graph
+from coala_gnn.graph.datasets import synthetic_graph
 
 
 def write_igb_fixture(out: str, num_nodes: int = 4000, dim: int = 32,
@@ -49,7 +49,7 @@ def write_igb_fixture(out: str, num_nodes: int = 4000, dim: int = 32,
             np.stack([src, dst], axis=1))
 
     if csc:
-        from coala_gnn_tpu.graph.csc import save_csc
+        from coala_gnn.graph.csc import save_csc
         pre = os.path.join(out, "preprocessed")
         os.makedirs(pre, exist_ok=True)
         save_csc(ds.graph, pre)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """node_local vs sharded on identical hardware: the zero-overhead claim.
 
-VERDICT r4 next #8: the hierarchical node_local mode (exchange all_to_alls
+the hierarchical node_local mode (exchange all_to_alls
 scoped to each host's device group — NVSHMEM per-node world parity,
 nvshmem_manager.cuh:15-28) must cost NOTHING over the flat sharded mode
 when the group is degenerate. This measures both modes' full-coverage
@@ -10,7 +10,7 @@ exchange collapses to local lookups in both). The structural half of the
 claim — cross-group feature bytes are zero by construction at any group
 size — is asserted by examples/comm_reconcile.py on the virtual mesh.
 
-  python examples/node_local_ab.py --out NODE_LOCAL_AB_r05.json
+  python examples/node_local_ab.py --out chiprun_out/node_local_ab.json
 """
 
 import argparse
@@ -31,14 +31,14 @@ def run_mode(mode, ds, B, fanouts, dim, hidden, cache_mb, warmup, steps,
     import jax.numpy as jnp
     import optax
 
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.models import DeviceBlock, make_model
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-    from coala_gnn_tpu.parallel.sharded_resident import (
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.models import DeviceBlock, make_model
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.parallel.sharded_resident import (
         ShardedResidentTrainer)
-    from coala_gnn_tpu.sampling.neighbor import block_capacities
+    from coala_gnn.sampling.neighbor import block_capacities
 
     store = HostFeatureStore(ds.features)
     mesh = make_mesh(jax.devices()[:1])
@@ -101,13 +101,13 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=16)
     p.add_argument("--steps", type=int, default=128)
     p.add_argument("--window", type=int, default=8)
-    p.add_argument("--platform", default="")
+    p.add_argument("--platform", default="gpu")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
 
-    from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+    from coala_gnn.utils.jaxconfig import setup as jax_setup
     jax_setup(args.platform)
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.datasets import synthetic_graph
 
     fanouts = [int(f) for f in args.fanout.split(",")]
     ds = synthetic_graph(num_nodes=args.nodes, avg_degree=15,

@@ -14,16 +14,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+from coala_gnn.utils.jaxconfig import setup as jax_setup
 
 jax_setup(os.environ.get("BENCH_PLATFORM", ""))
 
 import jax
 import jax.numpy as jnp
 
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.sampling.device_sampler import to_device_graph
-from coala_gnn_tpu.sampling.neighbor import block_capacities
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.sampling.device_sampler import to_device_graph
+from coala_gnn.sampling.neighbor import block_capacities
 
 B = int(os.environ.get("BENCH_BATCH", 1024))
 FANOUTS = [int(f) for f in os.environ.get("BENCH_FANOUT", "10,5").split(",")]
@@ -103,8 +103,8 @@ def main():
         elif mode == "sorted_gather":
             # coalesce the HBM access: gather g.indices at SORTED edge
             # positions (sequential-ish granules), then unsort. The unsort
-            # is itself a gather, but from a [n*f]-element array that fits
-            # VMEM — the cheap small-table regime.
+            # is itself a gather, but from a small [n*f]-element array —
+            # the cheap small-table regime.
             pos = (starts[:, None] + offsets).reshape(-1)
             order = jnp.argsort(pos)
             vals = g.indices[pos[order]]

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Stage decomposition of the fused resident training window on real TPU.
+"""Stage decomposition of the fused resident training window on the GPU.
 
 Times window variants (full / no-train / no-lookup / no-sample / sample-only)
 at the bench config to attribute ms/step to sampling, cache lookup and
-model fwd/bwd — the data that drives kernel-level optimization (VERDICT
-round-1 item 1: close the aggregation-fusion gap).
+model fwd/bwd — the data that drives kernel-level optimization (closing the
+aggregation-fusion gap).
 
 Timing discipline per docs/DESIGN.md §6: fused K-step scans inside one jit,
 chained data deps, final host readback.
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from coala_gnn_tpu.utils.jaxconfig import setup as jax_setup
+from coala_gnn.utils.jaxconfig import setup as jax_setup
 
 jax_setup()
 
@@ -26,13 +26,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models import make_model
-from coala_gnn_tpu.parallel.resident import ResidentTrainer
-from coala_gnn_tpu.sampling.device_sampler import sample_blocks_device
-from coala_gnn_tpu.utils.rng import make_root_key, wrap_key_any
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models import make_model
+from coala_gnn.parallel.resident import ResidentTrainer
+from coala_gnn.sampling.device_sampler import sample_blocks_device
+from coala_gnn.utils.rng import make_root_key, wrap_key_any
 
 B = int(os.environ.get("BENCH_BATCH", 1024))
 FANOUTS = [int(f) for f in os.environ.get("BENCH_FANOUT", "10,5").split(",")]

@@ -1,6 +1,6 @@
 """Affinity distribution must not change what the model learns.
 
-VERDICT r4 next #7: tie AFFINITY_AB's hit-ratio gain to trained-model
+tie AFFINITY_AB's hit-ratio gain to trained-model
 quality. Both distribution modes see the SAME shuffled seed stream each
 iteration — node_color only re-partitions it across hosts — so with
 equal-size parts and data-parallel gradient averaging the training
@@ -28,14 +28,14 @@ def _train_mode(mode, ds, meta, parts, B, fanouts, cache_mb, iters, refresh,
     import jax.numpy as jnp
     import optax
 
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.distribution import SeedDistributor
-    from coala_gnn_tpu.models import make_model
-    from coala_gnn_tpu.models.layers import blocks_to_device
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.distribution import SeedDistributor
+    from coala_gnn.models import make_model
+    from coala_gnn.models.layers import blocks_to_device
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     store = HostFeatureStore(ds.features)
     mesh = make_mesh(jax.devices()[:1])
@@ -113,8 +113,8 @@ def _train_mode(mode, ds, meta, parts, B, fanouts, cache_mb, iters, refresh,
 
 @pytest.mark.slow
 def test_affinity_convergence_matches_baseline():
-    from coala_gnn_tpu.coloring import generate_color_metadata
-    from coala_gnn_tpu.graph.datasets import clustered_graph
+    from coala_gnn.coloring import generate_color_metadata
+    from coala_gnn.graph.datasets import clustered_graph
 
     ds = clustered_graph(num_nodes=8000, num_communities=32, avg_degree=8,
                          p_intra=0.95, feature_dim=32, seed=3)

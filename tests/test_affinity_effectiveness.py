@@ -13,8 +13,8 @@ def test_node_color_beats_baseline_hit_ratio():
     sys.path.insert(0, "examples")
     import affinity_ab
 
-    from coala_gnn_tpu.coloring import generate_color_metadata
-    from coala_gnn_tpu.graph.datasets import clustered_graph
+    from coala_gnn.coloring import generate_color_metadata
+    from coala_gnn.graph.datasets import clustered_graph
 
     ds = clustered_graph(num_nodes=8000, num_communities=32, avg_degree=8,
                          p_intra=0.95, feature_dim=32, seed=3)

@@ -1,5 +1,4 @@
-"""examples/anchor.py — the turnkey real-data accuracy harness (VERDICT r2
-next #4). No real dataset exists in this environment, so the tests prove
+"""examples/anchor.py — the turnkey real-data accuracy harness. No real dataset exists in this environment, so the tests prove
 the harness itself: the gated no-data path gives an actionable exit, and
 the FULL anchor flow (load artifacts -> train -> parse accuracy -> write
 BASELINE.json published) runs end-to-end on a synthetic preprocessed-format
@@ -41,8 +40,8 @@ def test_anchor_full_flow_on_preprocessed_dir(tmp_path):
     """End-to-end: synthetic dataset written in the preprocessed artifact
     layout (create_csc_graph.py outputs), anchored through the real
     trainer, accuracy recorded into a BASELINE.json copy."""
-    from coala_gnn_tpu.graph.csc import save_csc
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.csc import save_csc
+    from coala_gnn.graph.datasets import synthetic_graph
 
     ds = synthetic_graph(num_nodes=4000, avg_degree=8, feature_dim=32,
                          num_classes=4, seed=77)

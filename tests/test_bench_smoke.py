@@ -5,7 +5,7 @@ formats) and checks the JSON contract fields."""
 import numpy as np
 
 import bench
-from coala_gnn_tpu.graph.datasets import synthetic_graph
+from coala_gnn.graph.datasets import synthetic_graph
 
 
 def _tiny(quantize):
@@ -55,7 +55,7 @@ def test_bench_run_host_cached_and_uncached():
     """run_host (the refactored host packed pipeline, r3): uncached
     (cache_mb=0, the self-baseline configuration) and cached runs both
     return the JSON contract; the cached run reports a hit ratio."""
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.datasets import synthetic_graph
     ds = synthetic_graph(num_nodes=400, avg_degree=6, feature_dim=32,
                          num_classes=4, seed=0)
     unc = bench.run_host(ds, B=32, fanouts=[4, 3], dim=32, hidden=32,
@@ -70,7 +70,7 @@ def test_bench_run_host_cached_and_uncached():
 
 
 def test_bench_run_dim1024_block_structure():
-    """The int8-overflow-scale pressure block (VERDICT r2 next #1): at a
+    """The int8-overflow-scale pressure block: at a
     budget where int8 lines also under-cover, both staged variants report
     a ratio vs the SAME-CONFIG inline uncached reference."""
     res = bench.run_dim1024(warmup=4, steps=8, nodes=600, dim=128, B=32,

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
 
 
 def small_cfg(dim=16, num_sets=4, num_colors=0, num_shards=1):
@@ -140,7 +140,7 @@ def test_host_tier_gather_and_async(rng):
 def test_refresh_clobbered_by_new_arrival_is_consistent(rng):
     """A same-batch (refresh, new-insert) pair targeting one (set, way) must
     resolve to ONE writer: the new line wins, the refreshed id is evicted,
-    and tags/data never diverge (ADVICE r1: duplicate scatter indices)."""
+    and tags/data never diverge."""
     cfg = fc.CacheConfig(num_sets=1, ways=2, dim=4, cache_dim=128,
                          num_colors=4)
     st = fc.init_colored_state(cfg)
@@ -218,10 +218,10 @@ def test_quantized_resident_trains():
     (quantization noise must not break convergence on separable data)."""
     import jax
     import optax
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.models import make_model
-    from coala_gnn_tpu.parallel.resident import ResidentTrainer
+    from coala_gnn.graph.datasets import synthetic_graph
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.models import make_model
+    from coala_gnn.parallel.resident import ResidentTrainer
 
     ds = synthetic_graph(num_nodes=2000, avg_degree=8, feature_dim=16,
                          num_classes=4, seed=17)
@@ -288,9 +288,9 @@ def test_quantized_associative_roundtrip_and_eviction():
 def test_quantized_sharded_cache_fetch():
     """Quantized lines through the full sharded exchange: prewarm + fetch
     reproduces host rows within quantization error on the 8-device mesh."""
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
 
     mesh8 = make_mesh()
     n_dev = mesh8.devices.size
@@ -314,7 +314,7 @@ def test_quantized_sharded_cache_fetch():
 
 
 def test_priority_admission_protects_hubs(rng):
-    """Priority-aware eviction (VERDICT r2 next #1): with line priorities
+    """Priority-aware eviction: with line priorities
     tracked, a full set rejects lower-priority arrivals outright and a
     higher-priority arrival evicts the set's LOWEST-priority way — one-touch
     cold rows can never displace hub lines."""
@@ -395,7 +395,7 @@ def test_rr_parity_without_priorities(rng):
 
 
 def test_prios_without_track_prio_raises(rng):
-    """ADVICE r3: passing prios to a state built without track_prio=True
+    """Passing prios to a state built without track_prio=True
     must fail loudly, not silently fall back to round-robin."""
     import pytest
     cfg = small_cfg(num_sets=2)

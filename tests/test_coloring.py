@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from coala_gnn_tpu.coloring import (
+from coala_gnn.coloring import (
     ColorMetadata,
     color_affinity,
     color_graph,
@@ -9,7 +9,7 @@ from coala_gnn_tpu.coloring import (
     load_color_metadata,
     save_color_metadata,
 )
-from coala_gnn_tpu.coloring.coloring import color_graph_from_seeds
+from coala_gnn.coloring.coloring import color_graph_from_seeds
 
 
 def test_coloring_invariants(small_dataset):
@@ -40,8 +40,8 @@ def test_coloring_python_native_structural_agreement(small_dataset):
 
 def test_coloring_native_exactly_matches_python_given_seeds(small_dataset):
     """With the RNG seed-pick injected, native BFS coloring and the Python
-    oracle must agree EXACTLY — colors, hops, and color count (VERDICT r1
-    item 9: the RNG draw was the only divergence between the two paths)."""
+    oracle must agree EXACTLY — colors, hops, and color count (the
+    RNG draw was the only divergence between the two paths)."""
     ds = small_dataset
     rng = np.random.default_rng(7)
     picks = rng.choice(ds.train_idx, size=12, replace=False).astype(np.int64)

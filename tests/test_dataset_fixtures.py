@@ -1,5 +1,5 @@
 """Reference-format dataset loaders exercised end-to-end from an offline
-fixture (VERDICT r1 item 5: load_igb_npy / load_preprocessed had never
+fixture (load_igb_npy / load_preprocessed had never
 touched real files; the env has no IGB/OGB data).
 
 The fixture reproduces the reference's IGB raw .npy directory layout
@@ -29,7 +29,7 @@ def fixture_root(tmp_path_factory):
 
 
 def test_load_igb_npy_reads_reference_layout(fixture_root):
-    from coala_gnn_tpu.graph.datasets import load_igb_npy, synthetic_graph
+    from coala_gnn.graph.datasets import load_igb_npy, synthetic_graph
 
     ds = load_igb_npy(fixture_root, dataset_size="tiny", num_classes=19)
     ref = synthetic_graph(num_nodes=3000, avg_degree=8, feature_dim=24,
@@ -48,7 +48,7 @@ def test_load_igb_npy_reads_reference_layout(fixture_root):
 
 
 def test_load_preprocessed_reads_csc_layout(fixture_root):
-    from coala_gnn_tpu.graph.datasets import load_preprocessed
+    from coala_gnn.graph.datasets import load_preprocessed
 
     pre = os.path.join(fixture_root, "preprocessed")
     ds = load_preprocessed(pre, num_classes=19)
@@ -60,11 +60,11 @@ def test_load_preprocessed_reads_csc_layout(fixture_root):
 def test_coloring_artifacts_interop_with_igb_fixture(fixture_root, tmp_path):
     """generate_colors CLI on the fixture -> artifacts load back and drive
     the affinity distributor (the offline preprocessing interop chain)."""
-    from coala_gnn_tpu.coloring import (generate_color_metadata,
+    from coala_gnn.coloring import (generate_color_metadata,
                                         load_color_metadata,
                                         save_color_metadata)
-    from coala_gnn_tpu.distribution import SeedDistributor
-    from coala_gnn_tpu.graph.datasets import load_igb_npy
+    from coala_gnn.distribution import SeedDistributor
+    from coala_gnn.graph.datasets import load_igb_npy
 
     ds = load_igb_npy(fixture_root, dataset_size="tiny", num_classes=19)
     meta = generate_color_metadata(ds.graph, ds.train_idx, base_rate=0.02,

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from coala_gnn_tpu.coloring import generate_color_metadata
-from coala_gnn_tpu.distribution import (
+from coala_gnn.coloring import generate_color_metadata
+from coala_gnn.distribution import (
     DistributionScheduler,
     SeedDistributor,
     greedy_affinity_assign,
@@ -19,7 +19,7 @@ def colored(request):
 # make module-scoped fixture able to see session fixture
 @pytest.fixture(scope="module")
 def small_dataset():
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn.graph.datasets import synthetic_graph
     return synthetic_graph(num_nodes=2000, avg_degree=10, feature_dim=32,
                            num_classes=8, seed=7)
 
@@ -126,7 +126,7 @@ def test_scheduler_pipeline_covers_stream(colored):
 def test_drop_tail_false_visits_every_seed():
     """Exact-epoch mode: ceil iteration count, final window wrap-padded,
     and the union of all windows covers every train seed."""
-    from coala_gnn_tpu.distribution import SeedDistributor
+    from coala_gnn.distribution import SeedDistributor
 
     ids = np.arange(1000, 1103)           # 103 seeds, global_batch = 16
     d = SeedDistributor(ids, batch_size=4, local_size=2, num_parts=2,
@@ -146,7 +146,7 @@ def test_drop_tail_false_visits_every_seed():
 
 
 def test_drop_tail_false_tiny_dataset_wraps():
-    from coala_gnn_tpu.distribution import SeedDistributor
+    from coala_gnn.distribution import SeedDistributor
 
     d = SeedDistributor(np.arange(5), batch_size=4, local_size=2,
                         num_parts=1, shuffle_seed=1, drop_tail=False)
@@ -158,9 +158,9 @@ def test_drop_tail_false_tiny_dataset_wraps():
 
 def test_valid_mask_marks_wrapped_slots():
     """valid_mask(it) flags exactly the real (non-wrap-padded) slots, in
-    distribute()'s [num_parts, domain_batch] layout (ADVICE r3: eval tail
+    distribute()'s [num_parts, domain_batch] layout (eval tail
     masks must come from the distributor, not a caller-side arange)."""
-    from coala_gnn_tpu.distribution import SeedDistributor
+    from coala_gnn.distribution import SeedDistributor
 
     ids = np.arange(1000, 1103)           # 103 seeds, global_batch = 16
     d = SeedDistributor(ids, batch_size=4, local_size=2, num_parts=2,
@@ -186,7 +186,7 @@ def test_valid_mask_refuses_reordering_mode(colored):
     """Positional tail masks are unsound under node_color reordering —
     valid_mask must refuse rather than miscount."""
     import pytest
-    from coala_gnn_tpu.distribution import SeedDistributor
+    from coala_gnn.distribution import SeedDistributor
 
     _, meta = colored
     d = SeedDistributor(np.arange(64), batch_size=4, local_size=2,
@@ -216,7 +216,7 @@ def test_distribute_return_valid_node_color(colored):
     """Validity rides THROUGH the node_color reordering: across an epoch
     the valid slots name every seed exactly once, and the final window's
     invalid slots hold only wrapped duplicates (the case positional
-    valid_mask refuses, ADVICE r3 #3)."""
+    valid_mask refuses)."""
     _, meta = colored
     rng = np.random.default_rng(3)
     ids = np.arange(100)                   # global_batch = 16 -> tail of 4

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from coala_gnn_tpu.graph.csc import CSCGraph, coo_to_csc, load_csc, save_csc
-from coala_gnn_tpu.graph.datasets import range_splits, synthetic_graph
+from coala_gnn.graph.csc import CSCGraph, coo_to_csc, load_csc, save_csc
+from coala_gnn.graph.datasets import range_splits, synthetic_graph
 
 
 def test_coo_to_csc_roundtrip():

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models.hetero import (
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models.hetero import (
     hetero_blocks_to_device,
     make_hetero_model,
 )
-from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+from coala_gnn.sampling.neighbor import NeighborSampler
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,4 @@
-"""Heterogeneous data path end-to-end (VERDICT r3 missing #3).
+"""Heterogeneous data path end-to-end.
 
 The reference ships hetero IGB/OGB loaders (reference:
 examples/dataloader.py:534-841) feeding its RGCN/RSAGE/RGAT models; this
@@ -30,7 +30,7 @@ def hetero_root(tmp_path_factory):
 
 def test_coo_to_csc_threads_edge_types():
     """edge_types ride the same dst-grouping permutation as indices."""
-    from coala_gnn_tpu.graph.csc import coo_to_csc
+    from coala_gnn.graph.csc import coo_to_csc
 
     rng = np.random.default_rng(0)
     n, e = 50, 400
@@ -51,7 +51,7 @@ def test_coo_to_csc_threads_edge_types():
 def test_save_csc_writes_edge_types_roundtrip(tmp_path):
     """save_csc now persists csc_edge_types.npy — the artifact load_csc
     reads (previously the CLI could never produce a hetero dir)."""
-    from coala_gnn_tpu.graph.csc import coo_to_csc, load_csc, save_csc
+    from coala_gnn.graph.csc import coo_to_csc, load_csc, save_csc
 
     rng = np.random.default_rng(1)
     src = rng.integers(0, 30, 200)
@@ -80,7 +80,7 @@ def test_create_csc_graph_cli_typed_edges(tmp_path):
     out = str(tmp_path / "csc")
     create_csc_graph.main(["--edge_index", f1, f2, "--num_nodes", "40",
                            "--out", out, "--symmetrize"])
-    from coala_gnn_tpu.graph.csc import load_csc
+    from coala_gnn.graph.csc import load_csc
     g = load_csc(out)
     assert g.num_edges == 2 * (60 + 30)
     assert g.num_edge_types == 4
@@ -89,7 +89,7 @@ def test_create_csc_graph_cli_typed_edges(tmp_path):
 
 
 def test_load_igb_hetero_flattens_reference_layout(hetero_root):
-    from coala_gnn_tpu.graph.datasets import load_igb_hetero
+    from coala_gnn.graph.datasets import load_igb_hetero
 
     ds = load_igb_hetero(hetero_root, dataset_size="tiny", num_classes=19)
     n_paper, n_author = 2000, 1000
@@ -121,7 +121,7 @@ def test_load_igb_hetero_flattens_reference_layout(hetero_root):
 def test_load_ogb_mag_hetero_layout(tmp_path):
     """OGB-MAG layout: [2, E] edge_index orientation, paper-only features,
     negative-label clamp (reference dataloader.py:747-841)."""
-    from coala_gnn_tpu.graph.datasets import load_ogb_mag_hetero
+    from coala_gnn.graph.datasets import load_ogb_mag_hetero
 
     rng = np.random.default_rng(3)
     base = os.path.join(str(tmp_path), "processed")
@@ -152,7 +152,7 @@ def test_load_ogb_mag_hetero_layout(tmp_path):
 
 
 def test_rgcn_trains_from_hetero_artifacts(hetero_root, capsys):
-    """The VERDICT r3 'done' bar: RGCN trains from on-disk hetero
+    """RGCN trains from on-disk hetero
     artifacts through examples/train.py (real relation ids, not the
     synthetic --num_edge_types fallback)."""
     import train as train_cli

@@ -7,10 +7,10 @@ what the mask-stacking path would have reported."""
 
 import numpy as np
 
-from coala_gnn_tpu.data.loader import CoalaDataLoader
-from coala_gnn_tpu.distribution import DistributionScheduler, SeedDistributor
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+from coala_gnn.data.loader import CoalaDataLoader
+from coala_gnn.distribution import DistributionScheduler, SeedDistributor
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.sampling.neighbor import NeighborSampler
 
 
 def _make_loader(ds, B, fanouts, contiguous, local_size=2):
@@ -45,7 +45,7 @@ def test_contiguous_batches_carry_edges_not_masks():
         # the two samplers draw different RNG streams per layout, so edge
         # counts only need to be plausible, not equal
         np.testing.assert_array_equal(hb_c.seeds, hb_p.seeds)
-        from coala_gnn_tpu.sampling.neighbor import block_capacities
+        from coala_gnn.sampling.neighbor import block_capacities
         caps = block_capacities(B, fanouts)
         cap = hb_c.seeds.shape[0] * sum(
             cd * f for (cd, _), f in zip(caps, fanouts))

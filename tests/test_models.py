@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from coala_gnn_tpu.models import blocks_to_device, make_model
-from coala_gnn_tpu.parallel.train import init_state, make_eval_step, make_train_step
-from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+from coala_gnn.models import blocks_to_device, make_model
+from coala_gnn.parallel.train import init_state, make_eval_step, make_train_step
+from coala_gnn.sampling.neighbor import NeighborSampler
 
 
 def _batch_inputs(ds, batch):
@@ -108,3 +108,81 @@ def test_end_to_end_training_learns(small_dataset):
     dblocks, x, labels = _batch_inputs(ds, batch)
     correct, total = eval_step(params, dblocks, x, labels)
     assert 0 <= int(correct) <= int(total) == B
+
+
+def _expected_tree(model_type, d_in, hidden, classes, heads, rels):
+    """Parameter shapes the flax modules these models replace built."""
+    tree = {}
+    for i, d_out in enumerate([hidden, classes]):
+        if model_type == "sage":
+            lp = {"fc_self": {"kernel": (d_in, d_out), "bias": (d_out,)},
+                  "fc_neigh": {"kernel": (d_in, d_out)}}
+        elif model_type == "gcn":
+            lp = {"fc": {"kernel": (d_in, d_out), "bias": (d_out,)}}
+        elif model_type == "gat":
+            lp = {"fc": {"kernel": (d_in, heads * d_out)},
+                  "attn_l": (heads, d_out), "attn_r": (heads, d_out)}
+        elif model_type == "rsage":
+            lp = {"fc_self": {"kernel": (d_in, d_out), "bias": (d_out,)}}
+            lp.update({f"fc_neigh_r{r}": {"kernel": (d_in, d_out)}
+                       for r in range(rels)})
+        elif model_type == "rgcn":
+            lp = {f"fc_r{r}": {"kernel": (d_in, d_out), "bias": (d_out,)}
+                  for r in range(rels)}
+        else:   # rgat
+            lp = {}
+            for r in range(rels):
+                lp[f"fc_r{r}"] = {"kernel": (d_in, heads * d_out)}
+                lp[f"attn_l_r{r}"] = (heads, d_out)
+                lp[f"attn_r_r{r}"] = (heads, d_out)
+        tree[f"layer_{i}"] = lp
+        d_in = heads * d_out if model_type == "gat" else d_out
+    return {"params": tree}
+
+
+@pytest.mark.parametrize("model_type",
+                         ["sage", "gcn", "gat", "rsage", "rgcn", "rgat"])
+def test_param_tree_and_finite_grad(model_type):
+    """The plain-JAX models keep flax's parameter tree (names, shapes,
+    float32 storage, zero biases) and give finite gradients with dropout
+    on (train=True)."""
+    from coala_gnn.models.hetero import DeviceHeteroBlock, make_hetero_model
+    from coala_gnn.models.layers import DeviceBlock
+
+    cap1, cap0, f0, f1, B = 4, 4 * 4, 3, 3, 4
+    n_src = cap0 * (1 + f0)
+    rng = np.random.default_rng(0)
+    hetero = model_type.startswith("r")
+    masks = [jnp.asarray((rng.random((cap0, f0)) < 0.8).astype(np.float32)),
+             jnp.asarray((rng.random((cap1, f1)) < 0.8).astype(np.float32))]
+    if hetero:
+        blocks = [DeviceHeteroBlock(adj=None, mask=m, rel=jnp.asarray(
+            rng.integers(0, 3, m.shape).astype(np.int32))) for m in masks]
+        model = make_hetero_model(model_type, hidden=16, num_classes=4,
+                                  num_rels=3, num_heads=2)
+    else:
+        blocks = [DeviceBlock(adj=None, mask=m) for m in masks]
+        model = make_model(model_type, hidden=16, num_classes=4,
+                           num_layers=2, num_heads=2)
+    x = jnp.asarray(rng.normal(size=(n_src, 8)).astype(np.float32))
+    params = model.init(jax.random.key(0), blocks, x)
+
+    shapes = jax.tree.map(lambda a: tuple(a.shape), params)
+    assert shapes == _expected_tree(model_type, 8, 16, 4, 2, 3)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        assert leaf.dtype == jnp.float32
+        if "bias" in jax.tree_util.keystr(path):
+            assert not np.asarray(leaf).any()
+
+    labels = jnp.asarray(rng.integers(0, 4, B).astype(np.int32))
+
+    def loss(p):
+        logits = model.apply(p, blocks, x, train=True,
+                             rngs={"dropout": jax.random.key(1)})[:B]
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, labels).mean()
+
+    grads = jax.grad(loss)(params)
+    leaves = jax.tree.leaves(grads)
+    assert all(np.isfinite(np.asarray(g)).all() for g in leaves)
+    assert any(np.abs(np.asarray(g)).max() > 0 for g in leaves)

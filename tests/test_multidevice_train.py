@@ -8,17 +8,17 @@ import optax
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.coloring import generate_color_metadata
-from coala_gnn_tpu.data.loader import CoalaDataLoader
-from coala_gnn_tpu.distribution import DistributionScheduler, SeedDistributor
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models import DeviceBlock, make_model
-from coala_gnn_tpu.parallel.mesh import DATA_AXIS, make_mesh
-from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-from coala_gnn_tpu.parallel.train import make_sharded_train_step
-from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
+from coala_gnn.coloring import generate_color_metadata
+from coala_gnn.data.loader import CoalaDataLoader
+from coala_gnn.distribution import DistributionScheduler, SeedDistributor
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models import DeviceBlock, make_model
+from coala_gnn.parallel.mesh import DATA_AXIS, make_mesh
+from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+from coala_gnn.parallel.train import make_sharded_train_step
+from coala_gnn.sampling.neighbor import NeighborSampler
 
 
 def test_multidevice_end_to_end():

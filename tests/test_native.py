@@ -9,7 +9,7 @@ import pytest
 
 
 def test_native_lib_builds_and_exports():
-    from coala_gnn_tpu.native import lib
+    from coala_gnn.native import lib
 
     l = lib.get()   # raises CalledProcessError on a compile failure
     for sym in ("cg_sample_layer", "cg_sample_layer_typed",
@@ -20,7 +20,7 @@ def test_native_lib_builds_and_exports():
 
 
 def test_sampler_actually_uses_native(small_dataset):
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     s = NeighborSampler(small_dataset.graph, [3], 8, seed=0)
     assert s._native is not None, "native sampler silently unavailable"
@@ -31,7 +31,7 @@ def test_encode_bf16_matches_mldtypes():
     import ml_dtypes
     import numpy as np
 
-    from coala_gnn_tpu.native import lib
+    from coala_gnn.native import lib
 
     rng = np.random.default_rng(0)
     x = rng.normal(0, 3, (257, 130)).astype(np.float32)
@@ -49,7 +49,7 @@ def test_gather_rows_bf16_fused():
     import ml_dtypes
     import numpy as np
 
-    from coala_gnn_tpu.native import lib
+    from coala_gnn.native import lib
 
     l = lib.get()
     rng = np.random.default_rng(1)
@@ -67,8 +67,8 @@ def test_gather_quantize_rows_fused():
     AND the jitted cache-line format; sentinel ids -> zero rows, scale 1."""
     import numpy as np
 
-    from coala_gnn_tpu.cache.feature_cache import quantize_rows
-    from coala_gnn_tpu.native import lib
+    from coala_gnn.cache.feature_cache import quantize_rows
+    from coala_gnn.native import lib
 
     l = lib.get()
     rng = np.random.default_rng(2)
@@ -88,3 +88,38 @@ def test_gather_quantize_rows_fused():
     sel = ids >= 0
     np.testing.assert_array_equal(q[sel], np.asarray(qj)[sel])
     np.testing.assert_allclose(scale[sel], np.asarray(sj)[sel], rtol=1e-6)
+
+
+def test_native_rebuilds_when_source_changes(tmp_path):
+    """The library is keyed by the source (and flags and CPU): an edited
+    source builds a new library beside the old one, an unchanged one is
+    reused, and a library keyed for other sources is never picked."""
+    import shutil
+
+    from coala_gnn.native import lib
+
+    src = tmp_path / "coala_native.cpp"
+    shutil.copy(lib._SRC, src)
+    build = str(tmp_path / "build")
+    so1, built1 = lib.build(str(src), build)
+    assert built1 and ctypes.CDLL(so1).cg_sample_layer
+    assert lib.build(str(src), build) == (so1, False)
+
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    so2, built2 = lib.build(str(src), build)
+    assert built2 and so2 != so1
+    assert ctypes.CDLL(so2).cg_gather_rows_f32
+
+
+def test_native_key_follows_the_cpu_flags(monkeypatch):
+    """A host that reports no CPU model still keys its library by the
+    feature flags ``-march=native`` compiles for."""
+    from coala_gnn.native import lib
+
+    paths = set()
+    for flags in ("fpu sse2 avx2", "fpu sse2 avx2 avx512f"):
+        monkeypatch.setattr(
+            lib, "_cpuinfo", lambda key, f=flags: f if key == "flags" else "")
+        paths.add(lib.library_path())
+    assert len(paths) == 2

@@ -1,7 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from coala_gnn_tpu.ops.aggregate import (
+from coala_gnn.ops.aggregate import (
     agg_mean,
     agg_sum,
     neighbor_view,
@@ -9,20 +10,34 @@ from coala_gnn_tpu.ops.aggregate import (
     padded_gather_sum_dense,
     padded_mean,
 )
-from coala_gnn_tpu.ops.segment import segment_softmax, spmm_coo
+from coala_gnn.ops.segment import segment_softmax, spmm_coo
 
 
-def test_padded_gather_sum_matches_dense_and_numpy(rng):
-    n_src, n_dst, fanout, dim = 50, 20, 6, 8
+@pytest.mark.parametrize("shape,zero_mask", [
+    ((50, 20, 6, 8), False),
+    # the shapes the removed gather-sum kernels were checked at
+    ((100, 40, 5, 128), False), ((64, 300, 3, 256), False),
+    ((50, 17, 10, 128), False), ((128, 48, 5, 128), False),
+    ((64, 33, 3, 256), False),
+    # masked slots (w=0) contribute nothing regardless of adj content
+    ((30, 10, 4, 128), True),
+])
+def test_padded_gather_sum_matches_dense_and_numpy(rng, shape, zero_mask):
+    n_src, n_dst, fanout, dim = shape
     x = rng.normal(size=(n_src, dim)).astype(np.float32)
     adj = rng.integers(0, n_src, size=(n_dst, fanout)).astype(np.int32)
     w = rng.normal(size=(n_dst, fanout)).astype(np.float32)
+    if zero_mask:
+        w[:, 1:] = 0.0
 
     want = np.einsum("nfd,nf->nd", x[adj], w)
     got_loop = padded_gather_sum(jnp.asarray(x), jnp.asarray(adj), jnp.asarray(w))
     got_dense = padded_gather_sum_dense(jnp.asarray(x), jnp.asarray(adj), jnp.asarray(w))
     np.testing.assert_allclose(np.asarray(got_loop), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.asarray(got_dense), want, rtol=1e-5, atol=1e-5)
+    if zero_mask:
+        np.testing.assert_allclose(np.asarray(got_loop),
+                                   x[adj[:, 0]] * w[:, :1], rtol=1e-6)
 
 
 def test_padded_mean_masked(rng):
@@ -65,8 +80,8 @@ def test_contiguous_blocks_model_equivalence(rng):
     """A model applied to contiguous (adj=None) blocks must match the same
     model applied to the equivalent explicit-adjacency blocks."""
     import jax
-    from coala_gnn_tpu.models import make_model
-    from coala_gnn_tpu.models.layers import DeviceBlock
+    from coala_gnn.models import make_model
+    from coala_gnn.models.layers import DeviceBlock
 
     B, fanouts, dim = 8, [4, 3], 6
     caps = [(B * (fanouts[1] + 1), fanouts[0]), (B, fanouts[1])]
@@ -117,7 +132,7 @@ def test_segment_softmax(rng):
 
 
 def test_bf16_aggregation_accumulates_in_f32(rng):
-    """ADVICE r3: bf16 features must not chain fanout bf16 adds — both
+    """Bf16 features must not chain fanout bf16 adds — both
     aggregation paths accumulate in f32 and match the f32 result to within
     a single bf16 rounding of the output."""
     cap_dst, fanout, dim = 64, 12, 32

@@ -3,15 +3,15 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from coala_gnn_tpu.data.packing import (
+from coala_gnn.data.packing import (
     batch_layout,
     pack_batch,
     packed_size,
     unpack_batch,
 )
-from coala_gnn_tpu.models import blocks_to_device, make_model
-from coala_gnn_tpu.parallel.train import make_packed_train_step, make_train_step
-from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+from coala_gnn.models import blocks_to_device, make_model
+from coala_gnn.parallel.train import make_packed_train_step, make_train_step
+from coala_gnn.sampling.neighbor import NeighborSampler
 
 
 def test_pack_unpack_roundtrip(small_dataset):

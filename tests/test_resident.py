@@ -6,11 +6,11 @@ import jax
 import optax
 import pytest
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models import make_model
-from coala_gnn_tpu.parallel.resident import ResidentTrainer
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models import make_model
+from coala_gnn.parallel.resident import ResidentTrainer
 
 
 @pytest.fixture(scope="module")
@@ -278,9 +278,9 @@ def test_fused_window_cold_cache_prefetches(setup):
     """A cold cache triggers the presample-prefetch: the window still runs
     fused (no replay misses), and the prefetched ids become residents."""
     import optax
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.models import make_model
-    from coala_gnn_tpu.parallel.resident import ResidentTrainer
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.models import make_model
+    from coala_gnn.parallel.resident import ResidentTrainer
 
     ds, store, _, _ = setup
     cfg = fc.CacheConfig(num_sets=128, ways=fc.WAYS, dim=32,
@@ -312,7 +312,7 @@ def test_fused_window_cold_cache_prefetches(setup):
     assert s["hits"] > 0
     # the prefetched ids became residents (auto-selected flat tier here:
     # capacity covers the graph)
-    from coala_gnn_tpu.cache import feature_cache as fcache
+    from coala_gnn.cache import feature_cache as fcache
     assert isinstance(rt.cache, fcache.FlatState)
     assert int(np.asarray(rt.cache.admitted.sum())) > 0
 
@@ -327,10 +327,10 @@ def test_fused_window_cold_cache_prefetches(setup):
 
 
 def test_hetero_resident_trains():
-    """rgcn through the device-resident pipeline (VERDICT r1 item 8): the
+    """rgcn through the device-resident pipeline: the
     device sampler carries per-slot edge types, the fused window runs, and
     loss decreases."""
-    from coala_gnn_tpu.models.hetero import make_hetero_model
+    from coala_gnn.models.hetero import make_hetero_model
 
     ds = synthetic_graph(num_nodes=2000, avg_degree=8, feature_dim=16,
                          num_classes=4, seed=31)
@@ -375,11 +375,11 @@ def test_quantized_associative_under_pressure_trains():
     import numpy as np
     import optax
 
-    import coala_gnn_tpu.cache.feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
-    from coala_gnn_tpu.models import make_model
-    from coala_gnn_tpu.parallel.resident import ResidentTrainer
+    import coala_gnn.cache.feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.graph.datasets import synthetic_graph
+    from coala_gnn.models import make_model
+    from coala_gnn.parallel.resident import ResidentTrainer
 
     ds = synthetic_graph(num_nodes=12000, avg_degree=8, feature_dim=32,
                          num_classes=4, seed=21)
@@ -465,7 +465,7 @@ def test_staged_windows_int8_transport_trains(setup):
     """int8 stage transport under pressure: 4x less host-link traffic,
     training still converges, and a staged row dequantizes to exactly what
     an int8 cache hit would serve (same symmetric absmax quantizer)."""
-    from coala_gnn_tpu.parallel.resident import encode_stage_rows
+    from coala_gnn.parallel.resident import encode_stage_rows
 
     import jax.numpy as jnp
 
@@ -647,7 +647,7 @@ def test_rbg_rng_impl_trains_and_is_deterministic(setup):
     sample+lookup+train path (different stream, same distribution) and be
     bit-reproducible across dispatches. The threefry default elsewhere in
     this file is the parity-pinned stream; rbg is the measurement-gated
-    TPU perf knob (BENCH_RNG_IMPL / --rng_impl)."""
+    perf knob (BENCH_RNG_IMPL / --rng_impl)."""
     ds, store, rt, model = setup
     rt.prewarm(np.arange(ds.graph.num_nodes))
     rng = np.random.default_rng(11)

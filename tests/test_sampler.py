@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from coala_gnn_tpu.sampling.neighbor import (
+from coala_gnn.sampling.neighbor import (
     NeighborSampler,
     block_capacities,
     max_sample_size,
@@ -98,13 +98,13 @@ def test_batch_size_enforced(small_dataset):
 
 
 def test_sampling_estimators_unbiased_across_engines():
-    """VERDICT r1 weak #7: the native host sampler draws WITHOUT
+    """The native host sampler draws WITHOUT
     replacement (Floyd) while the NumPy fallback and device sampler draw
     WITH replacement. Both must select each neighbor of a deg>fanout node
     uniformly — per-slot inclusion probability fanout/deg — so the mean
     aggregator stays an unbiased estimator under either engine."""
-    from coala_gnn_tpu.graph.csc import CSCGraph
-    from coala_gnn_tpu.sampling.neighbor import NeighborSampler
+    from coala_gnn.graph.csc import CSCGraph
+    from coala_gnn.sampling.neighbor import NeighborSampler
 
     deg, fanout, trials = 20, 5, 3000
     # star graph: node 0 has neighbors 1..20

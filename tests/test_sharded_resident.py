@@ -5,13 +5,13 @@ import jax
 import optax
 import pytest
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models import make_model
-from coala_gnn_tpu.parallel.mesh import make_mesh
-from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
-from coala_gnn_tpu.parallel.sharded_resident import ShardedResidentTrainer
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models import make_model
+from coala_gnn.parallel.mesh import make_mesh
+from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
+from coala_gnn.parallel.sharded_resident import ShardedResidentTrainer
 
 
 @pytest.fixture(scope="module")
@@ -288,7 +288,7 @@ def test_window_overflow_served_without_replay():
     # confirm overflow actually occurs in this configuration
     import jax as _jax
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from coala_gnn_tpu.parallel.mesh import DATA_AXIS
+    from coala_gnn.parallel.mesh import DATA_AXIS
     seeds_dev = _jax.device_put(
         np.ascontiguousarray(grid, np.int32),
         NamedSharding(mesh, P(DATA_AXIS, None, None)))
@@ -334,8 +334,8 @@ def test_sharded_fused_window(setup):
 
 def test_sharded_hetero_resident_trains():
     """rgcn through the multi-device resident pipeline: typed blocks flow
-    through shard_map stage_a and the fused window (VERDICT r1 item 8)."""
-    from coala_gnn_tpu.models.hetero import make_hetero_model
+    through shard_map stage_a and the fused window."""
+    from coala_gnn.models.hetero import make_hetero_model
 
     ds = synthetic_graph(num_nodes=3000, avg_degree=8, feature_dim=16,
                          num_classes=4, seed=41)
@@ -406,8 +406,8 @@ def _mk_pressure_trainer(ds, store, mesh, model, num_sets, transport,
 def _run_staged_windows(rt, ds, model):
     import jax.numpy as jnp
 
-    from coala_gnn_tpu.models.layers import DeviceBlock
-    from coala_gnn_tpu.sampling.neighbor import block_capacities
+    from coala_gnn.models.layers import DeviceBlock
+    from coala_gnn.sampling.neighbor import block_capacities
 
     n_dev = rt.mesh.devices.size
     B, K, M = 16, 2, 3

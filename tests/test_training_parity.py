@@ -1,5 +1,5 @@
 """Full-training-run parity: the resident block pipeline vs a dense
-full-graph reference trainer (VERDICT r2 next #4 — a stronger offline
+full-graph reference trainer (a stronger offline
 oracle than one-layer allclose).
 
 With fanout >= max in-degree the sampler takes every in-edge
@@ -17,13 +17,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from coala_gnn_tpu.cache import feature_cache as fc
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.graph.datasets import synthetic_graph
-from coala_gnn_tpu.models import make_model
-from coala_gnn_tpu.models.layers import DeviceBlock
-from coala_gnn_tpu.parallel.resident import ResidentTrainer
-from coala_gnn_tpu.sampling.neighbor import block_capacities
+from coala_gnn.cache import feature_cache as fc
+from coala_gnn.cache.host_tier import HostFeatureStore
+from coala_gnn.graph.datasets import synthetic_graph
+from coala_gnn.models import make_model
+from coala_gnn.models.layers import DeviceBlock
+from coala_gnn.parallel.resident import ResidentTrainer
+from coala_gnn.sampling.neighbor import block_capacities
 
 
 def test_resident_pipeline_training_run_matches_dense_reference():

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from coala_gnn_tpu.utils.timers import PhaseTimers
-from coala_gnn_tpu.utils import checkpoint as ckpt
-from coala_gnn_tpu.parallel.multihost import make_meta_exchange_fn, topology
+from coala_gnn.utils.timers import PhaseTimers
+from coala_gnn.utils import checkpoint as ckpt
+from coala_gnn.parallel.multihost import make_meta_exchange_fn, topology
 
 
 def test_phase_timers():
@@ -46,7 +46,7 @@ def test_checkpoint_restore_feeds_mesh_step(tmp_path):
     passing the restored tree straight into the sharded step raised
     'incompatible devices'."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from coala_gnn_tpu.parallel.mesh import make_mesh, DATA_AXIS
+    from coala_gnn.parallel.mesh import make_mesh, DATA_AXIS
 
     mesh = make_mesh()
     n_dev = mesh.devices.size
@@ -87,10 +87,10 @@ def test_meta_exchange_single_process():
 
 
 def test_local_color_meta_matches_global():
-    from coala_gnn_tpu.cache import feature_cache as fc
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.parallel.mesh import make_mesh
-    from coala_gnn_tpu.parallel.sharded_cache import ShardedFeatureCache
+    from coala_gnn.cache import feature_cache as fc
+    from coala_gnn.cache.host_tier import HostFeatureStore
+    from coala_gnn.parallel.mesh import make_mesh
+    from coala_gnn.parallel.sharded_cache import ShardedFeatureCache
 
     mesh = make_mesh()
     n_dev = mesh.devices.size
@@ -106,3 +106,66 @@ def test_local_color_meta_matches_global():
     cache.fetch(ids, nv, store.fetch, colors=colors)
     # single process: local == global
     np.testing.assert_array_equal(cache.local_color_meta(), cache.color_meta())
+
+
+@pytest.fixture
+def restore_cache_config():
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    yield
+    for k, v in saved.items():
+        jax.config.update(k, v)
+
+
+def test_jaxconfig_cache_dir_from_env(tmp_path, monkeypatch,
+                                      restore_cache_config):
+    from coala_gnn.utils import jaxconfig
+
+    want = str(tmp_path / "jcache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    jaxconfig.setup("cpu")
+    assert jax.config.jax_compilation_cache_dir == want
+    assert (tmp_path / "jcache").is_dir()
+
+
+def test_jaxconfig_cache_dir_default_in_checkout(monkeypatch,
+                                                 restore_cache_config):
+    import os
+
+    from coala_gnn.utils import jaxconfig
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    jaxconfig.setup("cpu")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert jax.config.jax_compilation_cache_dir == os.path.join(repo,
+                                                                ".jax_cache")
+
+
+def test_jaxconfig_refuses_platform_mismatch(restore_cache_config):
+    """The tests run on the CPU: asking for the GPU must raise, never fall
+    back to the CPU."""
+    from coala_gnn.utils import jaxconfig
+
+    with pytest.raises(RuntimeError, match="requested platform 'gpu'"):
+        jaxconfig.setup("gpu")
+
+
+def test_roofline_published_peaks_h100():
+    from coala_gnn.utils.roofline import bound, published_peaks
+
+    bf16 = published_peaks("NVIDIA H100 80GB HBM3", model_bytes=2)
+    f32 = published_peaks("NVIDIA H100 80GB HBM3", model_bytes=4)
+    assert bf16["stream_gbps"] == bf16["rand_gbps"] == 3350.0
+    assert bf16["mm_tflops"] == 989.0 and f32["mm_tflops"] == 495.0
+    # 3.35 GB of streaming bytes at 3.35 TB/s bounds the step at 1 ms
+    b = bound({"rand_bytes": 0, "stream_bytes": 3_350_000_000, "flops": 0},
+              bf16)
+    assert b["binding"] == "stream" and b["t_bound_ms"] == 1.0
+
+
+def test_roofline_unknown_device_is_an_error():
+    from coala_gnn.utils.roofline import published_peaks
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        published_peaks("Some Other Accelerator")
